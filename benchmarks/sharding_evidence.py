@@ -2,7 +2,7 @@
 """Compiler-level evidence for the zero-collective sharding claim.
 
 Lowers the sharded correct-mode step for mesh shapes on the 8-device
-virtual CPU platform (same GSPMD partitioner as TPU), scans the compiled
+virtual CPU platform (the same GSPMD partitioner as on GPUs), scans the compiled
 HLO for communication ops, and records per-device cost_analysis
 (flops / bytes accessed) against the unsharded step.  A perfectly
 partitioned embarrassingly-parallel program shows ~1/n_devices of the

@@ -1,4 +1,4 @@
-"""TPU-native MPEG-1 intra-frame video encoder (JAX/XLA/Pallas).
+"""MPEG-1 intra-frame video encoder on JAX/XLA.
 
 Built from scratch with the full capabilities of the reference C encoder
 (eburhansjah/ec504_ImageEncoder) plus an ISO-compliant production mode.

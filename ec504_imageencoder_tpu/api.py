@@ -12,6 +12,8 @@ import os
 
 import numpy as np
 
+from ec504_imageencoder_tpu.utils.compile_cache import enable_compile_cache
+
 
 def mpeg_encode_procedure(
     images_folder: str,
@@ -22,6 +24,7 @@ def mpeg_encode_procedure(
 ) -> int:
     """Encode every JPEG in `images_folder` to `video_path` (compat mode)
     and write per-image raw YCbCr dumps into `bitstream_folder`."""
+    enable_compile_cache()
     from ec504_imageencoder_tpu.io.jpeg import load_folder
     from ec504_imageencoder_tpu.models.encoder import encode_compat
 
@@ -52,6 +55,7 @@ def encode_video(
     backend: str = "jax",
 ) -> int:
     """One-call ISO-compliant encode of (B, H, W, 3) uint8 frames."""
+    enable_compile_cache()
     from ec504_imageencoder_tpu.models.mpeg1 import (
         FRAME_RATE_CODES,
         MPEG1IntraEncoder,
@@ -81,6 +85,7 @@ def encode_jpeg_folder(
     bytes, no RGB round trip), `coeffs` ships entropy-decoded
     coefficients and runs the JPEG IDCT on device, `rgb` is the
     universal fallback.  Returns bytes written."""
+    enable_compile_cache()
     from ec504_imageencoder_tpu.io.stream import FolderFrameSource
     from ec504_imageencoder_tpu.models.mpeg1 import (
         FRAME_RATE_CODES,

@@ -20,7 +20,7 @@ import time
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="mpeg-encode",
-        description="TPU-native MPEG-1 intra-frame encoder",
+        description="MPEG-1 intra-frame encoder on JAX/XLA",
     )
     p.add_argument("images", help="folder of input JPEG frames")
     p.add_argument("-o", "--output", default="awesome_video.mpeg",
@@ -46,7 +46,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="checkpointed encode: write per-GOP segments + "
                         "manifest here and resume any interrupted run")
     p.add_argument("--dct", choices=["auto", "aan", "f32"], default="auto",
-                   help="DCT kernel (correct mode): integer AAN or f32 MXU matmul")
+                   help="DCT (correct mode): integer AAN or f32 matmul")
     p.add_argument("--color-range", choices=["studio", "full"], default="studio",
                    help="correct mode: 'studio' = BT.601 limited range "
                         "(16-235, what standard MPEG-1 players assume); "
@@ -78,7 +78,10 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     from ec504_imageencoder_tpu.io.jpeg import load_folder
+    from ec504_imageencoder_tpu.utils.compile_cache import enable_compile_cache
     from ec504_imageencoder_tpu.utils.metrics import EncodeMetrics
+
+    enable_compile_cache()
 
     quality = args.quality
     metrics = EncodeMetrics()
@@ -100,7 +103,7 @@ def main(argv=None) -> int:
         n_frames, res_w, res_h = len(source), source.width, source.height
         frames = None
     else:
-        frames, names = load_folder(args.images, require_exact=False)
+        frames, names = load_folder(args.images)
         n_frames, res_h, res_w = len(frames), frames.shape[1], frames.shape[2]
         source = lambda s, e: frames[s:e]
     metrics.add("decode_s", time.perf_counter() - t0)

@@ -82,7 +82,7 @@ def main(argv=None) -> int:
     if args.psnr_ref:
         from ec504_imageencoder_tpu.io.jpeg import load_folder
 
-        ref, _names = load_folder(args.psnr_ref, require_exact=False)
+        ref, _names = load_folder(args.psnr_ref)
         n = min(len(ref), len(frames))
         if len(ref) != len(frames):
             print(f"frame count mismatch: stream {len(frames)} vs ref "

@@ -5,79 +5,93 @@ names *contain* ".jpg"/".jpeg" (strstr semantics), in readdir order
 (os.scandir preserves it on the same filesystem), with per-file skip on
 decode failure and a dimension-match check (image_processing.c:48-66).
 
-Decoder backends, in priority order:
-  1. the native stb-compatible decoder (io/native/libstbjpeg.so) — matches
-     the reference's vendored stb_image output byte-for-byte, which the
-     compat bit-exactness gate requires (stb's IDCT/upsample/YCbCr math
-     differs from libjpeg's);
-  2. PIL/libjpeg — pixel values may differ by ±1 from stb; fine for
-     correct-mode encoding, flagged for compat mode.
+The decoder is the native stb-compatible one (io/native/libstbjpeg.so,
+built from io/native/stb_compat_jpeg.cpp at first use).  It matches the
+reference's vendored stb_image output byte-for-byte, which the compat
+bit-exactness gate requires (stb's IDCT/upsample/YCbCr math differs from
+libjpeg's).  There is no other decoder: without the library every intake
+raises.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import subprocess
 import warnings
 
 import numpy as np
 
-_NATIVE_PATH = os.path.join(os.path.dirname(__file__), "native", "libstbjpeg.so")
+_NATIVE_DIR = os.path.join(os.path.dirname(__file__), "native")
 _native = None
 
 
+def _build_native(native_dir: str) -> str:
+    """Build libstbjpeg.so with the native Makefile; returns its path.
+
+    The Makefile compiles to a temporary name and renames it into place,
+    so processes that build at the same time never load a partial file."""
+    try:
+        subprocess.run(["make", "-s", "-C", native_dir, "libstbjpeg.so"],
+                       check=True, capture_output=True, text=True)
+    except (OSError, subprocess.CalledProcessError) as e:
+        detail = getattr(e, "stderr", None) or str(e)
+        raise RuntimeError(
+            f"cannot build the native JPEG decoder in {native_dir}: "
+            f"{detail.strip()[-2000:]}"
+        ) from e
+    return os.path.join(native_dir, "libstbjpeg.so")
+
+
 def _load_native():
+    """The native decoder library, built from source on first use."""
     global _native
-    if _native is None and os.path.exists(_NATIVE_PATH):
-        lib = ctypes.CDLL(_NATIVE_PATH)
-        lib.stbj_decode_file.argtypes = [
-            ctypes.c_char_p,
-            ctypes.POINTER(ctypes.c_int),
-            ctypes.POINTER(ctypes.c_int),
-            ctypes.POINTER(ctypes.c_int),
-        ]
-        lib.stbj_decode_file.restype = ctypes.POINTER(ctypes.c_ubyte)
-        lib.stbj_free.argtypes = [ctypes.POINTER(ctypes.c_ubyte)]
-        if hasattr(lib, "stbj_decode_batch"):
-            lib.stbj_decode_batch.argtypes = [
-                ctypes.POINTER(ctypes.c_char_p),
-                ctypes.c_int,
-                ctypes.c_int,
-                ctypes.c_int,
-                ctypes.POINTER(ctypes.c_ubyte),
-                ctypes.POINTER(ctypes.c_int),
-                ctypes.c_int,
-            ]
-            lib.stbj_decode_batch.restype = ctypes.c_int
-        if hasattr(lib, "stbj_probe_file"):
-            lib.stbj_probe_file.argtypes = [ctypes.c_char_p] + [
-                ctypes.POINTER(ctypes.c_int)
-            ] * 7
-            lib.stbj_probe_file.restype = ctypes.c_int
-            staged = [
-                ctypes.POINTER(ctypes.c_char_p),
-                ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int,
-            ]
-            lib.stbj_decode_planes_batch.argtypes = staged + [
-                ctypes.POINTER(ctypes.c_ubyte)] * 3 + [
-                ctypes.POINTER(ctypes.c_int), ctypes.c_int]
-            lib.stbj_decode_planes_batch.restype = ctypes.c_int
-            lib.stbj_decode_coeffs_batch.argtypes = staged + [
-                ctypes.POINTER(ctypes.c_int16)] * 3 + [
-                ctypes.POINTER(ctypes.c_int), ctypes.c_int]
-            lib.stbj_decode_coeffs_batch.restype = ctypes.c_int
-        _native = lib
+    if _native is not None:
+        return _native
+    lib = ctypes.CDLL(_build_native(_NATIVE_DIR))
+    lib.stbj_decode_file.argtypes = [
+        ctypes.c_char_p,
+        ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int),
+    ]
+    lib.stbj_decode_file.restype = ctypes.POINTER(ctypes.c_ubyte)
+    lib.stbj_free.argtypes = [ctypes.POINTER(ctypes.c_ubyte)]
+    lib.stbj_decode_batch.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p),
+        ctypes.c_int,
+        ctypes.c_int,
+        ctypes.c_int,
+        ctypes.POINTER(ctypes.c_ubyte),
+        ctypes.POINTER(ctypes.c_int),
+        ctypes.c_int,
+    ]
+    lib.stbj_decode_batch.restype = ctypes.c_int
+    lib.stbj_probe_file.argtypes = [ctypes.c_char_p] + [
+        ctypes.POINTER(ctypes.c_int)
+    ] * 7
+    lib.stbj_probe_file.restype = ctypes.c_int
+    staged = [
+        ctypes.POINTER(ctypes.c_char_p),
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int,
+    ]
+    lib.stbj_decode_planes_batch.argtypes = staged + [
+        ctypes.POINTER(ctypes.c_ubyte)] * 3 + [
+        ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+    lib.stbj_decode_planes_batch.restype = ctypes.c_int
+    lib.stbj_decode_coeffs_batch.argtypes = staged + [
+        ctypes.POINTER(ctypes.c_int16)] * 3 + [
+        ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+    lib.stbj_decode_coeffs_batch.restype = ctypes.c_int
+    _native = lib
     return _native
 
 
 def probe_jpeg(path: str) -> dict | None:
     """Header-only geometry probe: {width, height, ncomp, chroma_w,
-    chroma_h, hsamp, vsamp}; None if the native decoder is unavailable
-    or the file fails to parse."""
+    chroma_h, hsamp, vsamp}; None if the file fails to parse."""
     lib = _load_native()
-    if lib is None or not hasattr(lib, "stbj_probe_file"):
-        return None
     vals = [ctypes.c_int() for _ in range(7)]
     if not lib.stbj_probe_file(path.encode(), *vals):
         return None
@@ -90,8 +104,6 @@ def _staged_batch(paths, geom, n_threads, kind):
     """Shared driver for the planes/coeffs batch decoders.  Raises on any
     per-file failure (streaming intakes are fail-fast; io/stream.py)."""
     lib = _load_native()
-    if lib is None or not hasattr(lib, "stbj_probe_file"):
-        raise RuntimeError("native staged JPEG decoder unavailable")
     n = len(paths)
     w, h = geom["width"], geom["height"]
     cw, ch = geom["chroma_w"], geom["chroma_h"]
@@ -142,40 +154,22 @@ def decode_coeffs_batch(paths: list[str], geom: dict, n_threads: int = 0):
     return _staged_batch(paths, geom, n_threads, "coeffs")
 
 
-def have_native_decoder() -> bool:
-    return _load_native() is not None
-
-
-def decode_jpeg(path: str, require_exact: bool = False) -> np.ndarray:
-    """Decode one JPEG to (H, W, 3) uint8 RGB."""
+def decode_jpeg(path: str) -> np.ndarray:
+    """Decode one JPEG to (H, W, 3) uint8 RGB; ValueError if it fails."""
     lib = _load_native()
-    if lib is not None:
-        w = ctypes.c_int()
-        h = ctypes.c_int()
-        c = ctypes.c_int()
-        ptr = lib.stbj_decode_file(path.encode(), w, h, c)
-        if ptr:
-            try:
-                n = w.value * h.value * c.value
-                arr = np.ctypeslib.as_array(ptr, shape=(n,)).copy()
-            finally:
-                lib.stbj_free(ptr)
-            img = arr.reshape(h.value, w.value, c.value)
-            return img[..., :3] if c.value >= 3 else np.repeat(img, 3, axis=-1)
-    if require_exact:
-        raise RuntimeError(
-            "compat mode requires the stb-compatible native JPEG decoder "
-            "(build ec504_imageencoder_tpu/io/native); PIL output is not "
-            "bit-exact against the reference"
-        )
-    from PIL import Image
-
-    warnings.warn(
-        "using PIL JPEG decoding; pixels may differ slightly from the "
-        "reference's stb_image (compat bitstreams will not be bit-exact)",
-        stacklevel=2,
-    )
-    return np.asarray(Image.open(path).convert("RGB"))
+    w = ctypes.c_int()
+    h = ctypes.c_int()
+    c = ctypes.c_int()
+    ptr = lib.stbj_decode_file(path.encode(), w, h, c)
+    if not ptr:
+        raise ValueError(f"decode failure: {path}")
+    try:
+        n = w.value * h.value * c.value
+        arr = np.ctypeslib.as_array(ptr, shape=(n,)).copy()
+    finally:
+        lib.stbj_free(ptr)
+    img = arr.reshape(h.value, w.value, c.value)
+    return img[..., :3] if c.value >= 3 else np.repeat(img, 3, axis=-1)
 
 
 def scan_folder(folder: str) -> list[str]:
@@ -192,13 +186,10 @@ def _load_folder_native_batch(
 ) -> tuple[np.ndarray, list[str]] | None:
     """Threaded native batch decode straight into one contiguous buffer.
 
-    Returns None when the native library (or its batch entry point) is
-    unavailable or the probe file fails; caller falls back to the
-    sequential path.
+    Returns None when the probe file fails to decode; the caller then
+    decodes file by file, skipping failures.
     """
     lib = _load_native()
-    if lib is None or not hasattr(lib, "stbj_decode_batch"):
-        return None
     # probe (natively, so all frames share one decoder) for expected dims;
     # the probe's pixels are kept as frame 0 so it is not decoded twice
     pw, ph, pc = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
@@ -241,39 +232,27 @@ def _load_folder_native_batch(
     ]
 
 
-def load_folder(
-    folder: str, require_exact: bool = False, n_threads: int = 0
-) -> tuple[np.ndarray, list[str]]:
+def load_folder(folder: str, n_threads: int = 0) -> tuple[np.ndarray, list[str]]:
     """Decode all JPEGs in a folder -> ((B, H, W, 3) u8, kept paths).
 
     Files that fail to decode are skipped (reference encoder.h:163-167);
     mismatched dimensions raise (image_processing.c:48-66 aborts).
-    Uses the native threaded batch decoder when available (n_threads=0
-    means one per hardware core); falls back to sequential decode.
+    Uses the native threaded batch decoder (n_threads=0 means one per
+    hardware core).
     """
     paths = scan_folder(folder)
     if not paths:
         raise ValueError(f"no decodable images found in {folder}")
-    if len(paths) > 1:
-        try:
-            batched = _load_folder_native_batch(paths, n_threads)
-        except ValueError:
-            raise
-        except Exception as e:
-            warnings.warn(f"native batch decode failed ({e}); "
-                          "falling back to sequential", stacklevel=2)
-            batched = None
-        if batched is not None:
-            return batched
+    batched = _load_folder_native_batch(paths, n_threads)
+    if batched is not None:
+        return batched
     frames = []
     names = []
     for path in paths:
         try:
-            frames.append(decode_jpeg(path, require_exact))
+            frames.append(decode_jpeg(path))
             names.append(path)
-        except RuntimeError:
-            raise
-        except Exception as e:  # skip-on-bad-image semantics
+        except ValueError as e:  # skip-on-bad-image semantics
             warnings.warn(f"skipping {path}: {e}", stacklevel=2)
     if not frames:
         raise ValueError(f"no decodable images found in {folder}")

@@ -2,7 +2,7 @@
 //
 // The reference exposes mpeg_encode_procedure() through a shared library
 // for its Android app (reference encoder_jni.c:5-22, Makefile sharedlib/
-// jni targets).  The TPU framework's encode path lives in the Python/JAX
+// jni targets).  This framework's encode path lives in the Python/JAX
 // runtime, so the embedding surface is a thin process boundary: this
 // shim exports the same C entry point and drives the CLI.  Callers link
 // libencoder_compat.so and call exactly what they called before.

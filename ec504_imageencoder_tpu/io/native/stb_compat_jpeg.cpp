@@ -100,7 +100,7 @@ struct Component {
 
 class Decoder {
  public:
-  // stop stages for the hybrid host/TPU pipeline: COEFFS ends after
+  // stop stages for the hybrid host/device pipeline: COEFFS ends after
   // entropy decode (+ dequantization), PLANES after the IDCT (per-
   // component YCbCr pixel planes, no resample/color), FULL is the
   // original interleaved-RGB decode.
@@ -982,10 +982,10 @@ int stbj_decode_batch(const char **paths, int n, int expect_w, int expect_h,
 }  // extern "C" (reopened below for the staged-decode entry points)
 
 // ---------------------------------------------------------------------------
-// Staged decode for the hybrid host/TPU pipeline (reference counterpart:
+// Staged decode for the hybrid host/device pipeline (reference counterpart:
 // stb's host-only pipeline, stb_image.h:2430-2523 + encoder.h:126-171 —
 // there everything runs on the host; here the host stops after the
-// inherently serial entropy decode (+ optional IDCT) and the TPU runs
+// inherently serial entropy decode (+ optional IDCT) and the device runs
 // the rest, or the encoder ingests the YCbCr planes directly).
 
 static std::vector<unsigned char> read_file(const char *path) {
@@ -1098,7 +1098,7 @@ extern "C" int stbj_decode_planes_batch(
 
 // Decode to dequantized int16 coefficient blocks (entropy decode only on
 // the host): per frame, Y is ceil(eh/8)*ceil(ew/8) blocks of 64
-// natural-order int16, chroma likewise at (ech, ecw).  The TPU runs
+// natural-order int16, chroma likewise at (ech, ecw).  The device runs
 // dequant-free islow IDCT + resample + color (ops/jpeg_tpu.py).
 extern "C" int stbj_decode_coeffs_batch(
                              const char **paths, int n, int ew, int eh,

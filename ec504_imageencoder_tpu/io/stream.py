@@ -24,6 +24,7 @@ production behavior.  Dimension mismatches raise in both modes.
 from __future__ import annotations
 
 import concurrent.futures
+import ctypes
 
 import numpy as np
 
@@ -36,24 +37,13 @@ class FolderFrameSource:
     src(start, end) -> (end-start, H, W, 3) uint8, decoded on demand.
     """
 
-    def __init__(self, folder: str, require_exact: bool = False,
-                 n_threads: int = 0):
+    def __init__(self, folder: str, n_threads: int = 0):
         self.folder = folder
-        self.require_exact = require_exact
         self.n_threads = n_threads
         self.paths = jpeg_io.scan_folder(folder)
         if not self.paths:
             raise ValueError(f"no decodable images found in {folder}")
-        try:
-            probe = jpeg_io.decode_jpeg(self.paths[0], require_exact)
-        except RuntimeError:
-            raise  # compat-exactness requirement, not a decode failure
-        except Exception as e:
-            # normalize decoder-specific errors (PIL etc.) to the
-            # streaming intake's fail-fast ValueError contract
-            raise ValueError(
-                f"decode failure: {self.paths[0]} ({e})"
-            ) from e
+        probe = jpeg_io.decode_jpeg(self.paths[0])
         self.height, self.width = probe.shape[:2]
         self._probe = probe
 
@@ -63,38 +53,23 @@ class FolderFrameSource:
     def _decode_range(self, start: int, end: int) -> np.ndarray:
         paths = self.paths[start:end]
         out = np.empty((len(paths), self.height, self.width, 3), np.uint8)
-        lib = jpeg_io._load_native()
-        if lib is not None and hasattr(lib, "stbj_decode_batch") and paths:
-            import ctypes
-
-            n = len(paths)
-            st = np.zeros(n, np.int32)
-            c_paths = (ctypes.c_char_p * n)(*[p.encode() for p in paths])
-            lib.stbj_decode_batch(
-                c_paths, n, self.width, self.height,
-                out.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)),
-                st.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
-                self.n_threads,
-            )
-            bad = np.nonzero(st != 0)[0]
-            if bad.size:
-                i = int(bad[0])
-                kind = "dimension mismatch" if st[i] == 2 else "decode failure"
-                raise ValueError(f"{kind}: {paths[i]} (streaming intake is fail-fast)")
+        if not paths:
             return out
-        for i, p in enumerate(paths):
-            try:
-                img = jpeg_io.decode_jpeg(p, self.require_exact)
-            except RuntimeError:
-                raise
-            except Exception as e:
-                raise ValueError(f"decode failure: {p} ({e})") from e
-            if img.shape[:2] != (self.height, self.width):
-                raise ValueError(
-                    f"dimension mismatch: {p} is {img.shape}, expected "
-                    f"{(self.height, self.width, 3)}"
-                )
-            out[i] = img
+        lib = jpeg_io._load_native()
+        n = len(paths)
+        st = np.zeros(n, np.int32)
+        c_paths = (ctypes.c_char_p * n)(*[p.encode() for p in paths])
+        lib.stbj_decode_batch(
+            c_paths, n, self.width, self.height,
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)),
+            st.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+            self.n_threads,
+        )
+        bad = np.nonzero(st != 0)[0]
+        if bad.size:
+            i = int(bad[0])
+            kind = "dimension mismatch" if st[i] == 2 else "decode failure"
+            raise ValueError(f"{kind}: {paths[i]} (streaming intake is fail-fast)")
         return out
 
     def __call__(self, start: int, end: int) -> np.ndarray:
@@ -126,16 +101,16 @@ class FolderFrameSource:
     # -- YCbCr 4:2:0 plane intake (the JPEG fast path) --------------------
     @property
     def geometry(self) -> dict | None:
-        """Probed JPEG geometry of frame 0, or None without the native
-        staged decoder."""
+        """Probed JPEG geometry of frame 0 (None if its header does not
+        parse)."""
         if not hasattr(self, "_geom"):
             self._geom = jpeg_io.probe_jpeg(self.paths[0])
         return self._geom
 
     def supports_planes(self) -> bool:
         """True when frames can stream as 4:2:0 YCbCr planes: 3-component
-        2x2-subsampled JPEGs through the native staged decoder (other
-        layouts fall back to the RGB intake)."""
+        2x2-subsampled JPEGs (other layouts fall back to the RGB
+        intake)."""
         g = self.geometry
         return bool(
             g and g["ncomp"] == 3 and g["hsamp"] == 2 and g["vsamp"] == 2

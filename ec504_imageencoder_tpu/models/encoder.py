@@ -35,9 +35,7 @@ N_MBS = CROP_H // 16      # 9 macroblocks per slice
 QUANT_SCALE = 1
 
 # worst-case compat slice: 38 hdr bits + 9 MBs * (2 + 6 blocks * (15 DC +
-# 63*28 AC + 2 EOB)) bits = 12,026 B; rounded up to a 512-byte multiple so
-# max_words % 128 == 0 and the fused4 Pallas pack engages on TPU
-# (ops/bitpack.py fused4 gate)
+# 63*28 AC + 2 EOB)) bits = 12,026 B, rounded up to a 512-byte multiple
 MAX_SLICE_BYTES_COMPAT = 12288
 
 # luma-block gather indices within the cropped block grid (numpy consts
@@ -61,149 +59,12 @@ def _blockize(plane, xp):
     return p.transpose(perm)
 
 
-def compat_blockize_px64(y, cb, cr, xp):
-    """(B, H, W) u8 planes -> (B*6, 64, 54) px-major pixel blocks in the
-    compat slice/MB/block order: kernel row = slice (column band), lane
-    n = mb*6 + component, sublane = px*8 + py (blocks_to_px64 layout).
-
-    Luma from the 96x144 crop with b = y2*2 + x2 (encoder.h:263-341);
-    chroma quirk Q3: the full-res plane read at half-width stride is a
-    contiguous (2H, W/2) view.  Pure reshape/transpose — no gathers."""
-    bsz, h, w = y.shape
-    lg = y[:, :CROP_H, :CROP_W].reshape(bsz, N_MBS, 2, 8, N_SLICES, 2, 8)
-    luma = lg.transpose(0, 4, 6, 3, 1, 2, 5).reshape(
-        bsz, N_SLICES, 64, N_MBS, 4
-    )
-
-    def chroma(p):
-        # the reference reads the full-res plane with half-width stride
-        # (pointer math, Q3): element (r, c) = flat[r*(w//2) + c].  A
-        # (2h, w//2) reshape is only equivalent for even widths; the
-        # flat view below matches C for any width (odd-width frames
-        # found by an r5 soak).
-        half = w // 2
-        flat = p.reshape(bsz, h * w)
-        v = flat[:, : 8 * N_MBS * half].reshape(bsz, 8 * N_MBS, half)
-        v = v[:, :, : 8 * N_SLICES]
-        g = v.reshape(bsz, N_MBS, 8, N_SLICES, 8)
-        return g.transpose(0, 3, 4, 2, 1).reshape(bsz, N_SLICES, 64, N_MBS, 1)
-
-    blocks = xp.concatenate([luma, chroma(cb), chroma(cr)], axis=-1)
-    return blocks.reshape(bsz * N_SLICES, 64, N_MBS * 6)
-
-
-def _compat_tpu_pipeline(y, cb, cr, scaled_q, max_slice_bytes):
-    """TPU-native compat path: crop blockize into the kernels' px-major
-    (R, 64, NB) layout -> fused compat Pallas VLC kernel (AAN DCT +
-    truncating quantization + zigzag + bug-compatible emission in VMEM,
-    ops/pallas_vlc.py compat section) -> fused4 pack.  Byte-exact against
-    the generic path / reference binary (tests/test_golden_compat.py on
-    TPU via EC504_TPU_TESTS=1)."""
-    import os
-
-    import jax.numpy as jnp
-
-    from ec504_imageencoder_tpu.ops.pallas_pack import pack_words_fused4_core
-    from ec504_imageencoder_tpu.ops.pallas_vlc import (
-        fuse_slots_streamwise,
-        fused_stack_to_stream,
-        vlc_compat_fused_slots_from_blocks_tpu,
-        vlc_compat_slots_from_blocks_tpu,
-    )
-
-    bsz = y.shape[0]
-    blocks = compat_blockize_px64(y, cb, cr, jnp)
-
-    # EC504_DEBUG_CHECKS=1 (trace-time knob): run the raw-slot compat
-    # kernel + host-side slot_violations + the pack core's in-kernel
-    # guards, mirroring the correct-mode sanitizer wiring; violations
-    # surface as negated slice bit counts (encode_compat raises).
-    debug = os.environ.get("EC504_DEBUG_CHECKS", "0") == "1"
-    kviol = None
-    if debug:
-        from ec504_imageencoder_tpu.ops.pallas_vlc import slot_violations
-
-        codes, lens = vlc_compat_slots_from_blocks_tpu(blocks, scaled_q)
-        kviol = slot_violations(
-            codes.transpose(1, 0, 2), lens.transpose(1, 0, 2), jnp
-        ).transpose(1, 0, 2)
-        v0, v1, v2, v3, fl = fuse_slots_streamwise(codes, lens)
-    else:
-        vstack, flens = vlc_compat_fused_slots_from_blocks_tpu(blocks, scaled_q)
-        v0, v1, v2, v3, fl = fused_stack_to_stream(vstack, flens)
-    emit_be = os.environ.get("EC504_PACK_BE", "1") == "1"
-    if debug:
-        words, nbits, pviol = pack_words_fused4_core(
-            v0, v1, v2, v3, fl, max_slice_bytes // 4, bit_offset=38,
-            emit_be=emit_be, debug=True,
-        )
-        viol = pviol + kviol.sum(axis=(-2, -1))
-        nbits = jnp.where(viol > 0, -viol, nbits)
-    else:
-        words, nbits = pack_words_fused4_core(
-            v0, v1, v2, v3, fl, max_slice_bytes // 4, bit_offset=38,
-            emit_be=emit_be,
-        )
-    if emit_be:
-        from ec504_imageencoder_tpu.ops.bitpack import words_be_to_bytes
-
-        seg = words_be_to_bytes(words)
-    else:
-        from ec504_imageencoder_tpu.ops.bitpack import words_to_bytes
-
-        seg = words_to_bytes(words, xp=jnp)
-    seg = seg.reshape(bsz, N_SLICES, max_slice_bytes)
-    nbits = nbits.reshape(bsz, N_SLICES).astype(jnp.int32)
-
-    # OR the 38-bit slice header into the first 5 bytes:
-    # 00 00 01 vpos (qscale 5b + '0' extra bit, left-aligned)
-    vpos = jnp.arange(1, N_SLICES + 1, dtype=jnp.uint8)
-    hdr = jnp.stack(
-        [
-            jnp.zeros((N_SLICES,), jnp.uint8),
-            jnp.zeros((N_SLICES,), jnp.uint8),
-            jnp.ones((N_SLICES,), jnp.uint8),
-            vpos,
-            jnp.full((N_SLICES,), (QUANT_SCALE & 0x1F) << 3, jnp.uint8),
-        ],
-        axis=-1,
-    )
-    hdr = jnp.broadcast_to(hdr[None], (bsz, N_SLICES, 5))
-    seg = seg.at[..., :5].set(seg[..., :5] | hdr)
-    return seg, nbits
-
-
 def compat_pipeline(y, cb, cr, scaled_q, max_slice_bytes=MAX_SLICE_BYTES_COMPAT, xp=np):
     """(B,H,W) u8 planes -> ((B, 6, max_slice_bytes) u8, (B, 6) i32 bit lens).
 
     Slices are byte-aligned islands; callers take ceil(nbits/8) bytes of
-    each (zero padding is already in place).  Under jnp on a TPU lowering
-    the whole pipeline routes through the compat Pallas kernel
-    (_compat_tpu_pipeline); elsewhere the generic XLA/numpy path runs.
+    each (zero padding is already in place).
     """
-    if xp is not np:
-        import os
-
-        import jax
-
-        mw = max_slice_bytes // 4
-        if (os.environ.get("EC504_VLC", "fused") == "fused"
-                and mw % 128 == 0 and mw >= 640):
-            generic = functools.partial(
-                _compat_generic_pipeline, scaled_q=scaled_q,
-                max_slice_bytes=max_slice_bytes, xp=xp,
-            )
-            return jax.lax.platform_dependent(
-                y, cb, cr,
-                tpu=lambda y, cb, cr: _compat_tpu_pipeline(
-                    y, cb, cr, xp.asarray(scaled_q), max_slice_bytes
-                ),
-                default=lambda y, cb, cr: generic(y, cb, cr),
-            )
-    return _compat_generic_pipeline(y, cb, cr, scaled_q, max_slice_bytes, xp)
-
-
-def _compat_generic_pipeline(y, cb, cr, scaled_q, max_slice_bytes, xp):
     bsz, h, w = y.shape
 
     luma_grid = _blockize(y[:, :CROP_H, :CROP_W], xp)        # (B,18,12,8,8)
@@ -211,8 +72,10 @@ def _compat_generic_pipeline(y, cb, cr, scaled_q, max_slice_bytes, xp):
 
     # chroma quirk Q3: full-res plane, half-width stride == (2H, W/2) view
     def chroma_blocks(p):
-        # half-width-stride pointer view, valid for odd widths too (see
-        # compat_blockize_px64.chroma)
+        # the reference reads the full-res plane with half-width stride
+        # (pointer math, Q3): element (r, c) = flat[r*(w//2) + c].  A
+        # (2h, w//2) reshape is only equivalent for even widths; the
+        # flat view below matches C for any width.
         half = w // 2
         flat = p.reshape(bsz, h * w)
         v = flat[:, : 8 * N_MBS * half].reshape(bsz, 8 * N_MBS, half)
@@ -255,9 +118,7 @@ def _compat_generic_pipeline(y, cb, cr, scaled_q, max_slice_bytes, xp):
     slice_lens = xp.concatenate(
         [hdr_a_len, hdr_b_len, per_mb_lens.reshape(bsz, N_SLICES, -1)], axis=-1
     )
-    from ec504_imageencoder_tpu.ops.bitpack import pack_bytes_device
-
-    return pack_bytes_device(slice_codes, slice_lens, max_slice_bytes, xp=xp)
+    return pack_bytes(slice_codes, slice_lens, max_slice_bytes, xp=xp)
 
 
 @functools.lru_cache(maxsize=8)
@@ -315,15 +176,6 @@ def encode_compat(
         # prefix, bucketed to limit recompiles — host<->device bandwidth is
         # the scarce resource, not device compute
         seg_bits = np.asarray(seg_bits_dev)
-        if int(seg_bits.min(initial=0)) < 0:
-            # EC504_DEBUG_CHECKS=1: in-kernel guards report violations as
-            # negated slice bit counts (see _compat_tpu_pipeline)
-            viol = -seg_bits[seg_bits < 0]
-            raise RuntimeError(
-                f"in-kernel invariant violations in {viol.size} compat "
-                f"slice(s) ({int(viol.sum())} total hits) — VLC slot "
-                "length/masking or pack byte-plane invariant broken"
-            )
         used = int(seg_bits.max(initial=0) + 7) // 8
         bucket = max(256, 1 << (used - 1).bit_length())
         bucket = min(bucket, MAX_SLICE_BYTES_COMPAT)

@@ -26,9 +26,11 @@ MB-row sharding axis and the frame sharding axis embarrassingly parallel
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 
+from ec504_imageencoder_tpu.ops.bitpack import pack_bytes
 from ec504_imageencoder_tpu.ops.color import (
     rgb_to_ycbcr,
     rgb_to_ycbcr_studio,
@@ -86,12 +88,11 @@ def quality_to_quant(quality: int) -> tuple[np.ndarray, int]:
 
 
 def slice_bytes_bucket(nbytes: int) -> int:
-    """Round a slice-buffer size up to the fused-kernel granularity.
+    """Round a slice-buffer size up to a 512-byte multiple, >= 2560.
 
-    The fused Pallas pack engages when max_words % 128 == 0 and
-    max_words >= 640 (ops/bitpack.py gate), i.e. byte sizes that are
-    512-multiples >= 2560; smaller/odd sizes silently fall back to the
-    generic pack."""
+    The rounding bounds recompiles: the buffer size is a jit key, so a
+    regrow lands on one of few bucketed sizes instead of a new program
+    per exact byte count."""
     return max(2560, -(-nbytes // 512) * 512)
 
 
@@ -137,8 +138,8 @@ def pad_to_macroblocks(frames: np.ndarray) -> np.ndarray:
     return frames
 
 
-def _emit_and_pack_generic(zz, pred, max_slice_bytes, xp):
-    """XLA/numpy VLC emission + pack: 64-slot layout, header bit offset."""
+def _emit_and_pack(zz, pred, max_slice_bytes, xp):
+    """VLC emission + pack: 64-slot layout, header bit offset."""
     bsz, mbh, mbw = zz.shape[0], zz.shape[1], zz.shape[2]
     is_luma = xp.broadcast_to(
         xp.asarray(np.array([1, 1, 1, 1, 0, 0], np.int32)), zz.shape[:-1]
@@ -155,51 +156,25 @@ def _emit_and_pack_generic(zz, pred, max_slice_bytes, xp):
     # first 5 bytes by the caller.  No concatenates anywhere.
     slice_codes = codes.reshape(bsz, mbh, mbw * 6 * 64)
     slice_lens = lens.reshape(bsz, mbh, mbw * 6 * 64)
-    from ec504_imageencoder_tpu.ops.bitpack import pack_bytes_device
-
-    seg, nbits = pack_bytes_device(
+    seg, nbits = pack_bytes(
         slice_codes, slice_lens, max_slice_bytes, xp=xp, bit_offset=38
     )
-    import os
-
     if xp is not np and os.environ.get("EC504_DEBUG_CHECKS", "0") == "1":
-        # same invariant guards as the Pallas kernels' debug mode (see
-        # _tpu_pipeline_from_planes), for the generic/CPU-mesh path
-        bad_len = (slice_lens < 0) | (slice_lens > 30)
-        mask = (xp.uint32(1) << xp.clip(slice_lens, 0, 31).astype(xp.uint32)
-                ) - xp.uint32(1)
-        bad_code = (slice_codes.astype(xp.uint32) & ~mask) != xp.uint32(0)
-        viol = xp.sum((bad_len | bad_code).astype(xp.int32), axis=-1)
+        # read at trace time; a violation surfaces as a negated slice bit
+        # count, which MPEG1IntraEncoder._run_with_regrow raises on
+        viol = slot_violations(slice_codes, slice_lens, xp)
         nbits = xp.where(viol > 0, -viol, nbits)
     return seg, nbits
 
 
-def _emit_and_pack_tpu(zz, pred, max_slice_bytes):
-    """Fused-kernel path: Pallas VLC kernel (slots in a (64, blocks)
-    VMEM-friendly layout, in-kernel AC table lookup) -> 4:1 slot fusion
-    on leading axes -> fused4 pack core.  Bit-identical to the generic
-    path; ~3x fewer HBM passes."""
-    import jax.numpy as jnp
-
-    from ec504_imageencoder_tpu.ops.bitpack import words_to_bytes
-    from ec504_imageencoder_tpu.ops.pallas_pack import pack_words_fused4_core
-    from ec504_imageencoder_tpu.ops.pallas_vlc import (
-        fuse_slots_streamwise,
-        vlc_slots_tpu,
-    )
-
-    bsz, mbh, mbw = zz.shape[0], zz.shape[1], zz.shape[2]
-    r, nb = bsz * mbh, mbw * 6
-    zzT = zz.reshape(r, nb, 64).transpose(0, 2, 1)
-    predT = pred.reshape(r, nb)
-    codes, lens = vlc_slots_tpu(zzT, predT)
-    v0, v1, v2, v3, flens = fuse_slots_streamwise(codes, lens)
-    words, nbits = pack_words_fused4_core(
-        v0, v1, v2, v3, flens, max_slice_bytes // 4, bit_offset=38
-    )
-    seg = words_to_bytes(words, xp=jnp)
-    return (seg.reshape(bsz, mbh, max_slice_bytes),
-            nbits.reshape(bsz, mbh).astype(jnp.int32))
+def slot_violations(codes, lens, xp):
+    """Per-slice count of slots that break the pack's input contract:
+    a length outside [0, 30], or code bits set above the length."""
+    bad_len = (lens < 0) | (lens > 30)
+    mask = (xp.uint32(1) << xp.clip(lens, 0, 31).astype(xp.uint32)
+            ) - xp.uint32(1)
+    bad_code = (codes.astype(xp.uint32) & ~mask) != xp.uint32(0)
+    return xp.sum((bad_len | bad_code).astype(xp.int32), axis=-1)
 
 
 def _dc_predictors(dc, bsz, mbh, mbw, xp):
@@ -215,12 +190,23 @@ def _dc_predictors(dc, bsz, mbh, mbw, xp):
     return xp.concatenate([luma_pred, cb_pred, cr_pred], axis=-1)
 
 
-def _generic_pipeline_from_planes(
-    y, cb, cr, intra_q, qscale, max_slice_bytes, xp, dct_impl
+def correct_pipeline_planes(
+    y, cb, cr, intra_q, qscale, max_slice_bytes, xp=np, dct_impl="aan",
 ):
-    """Reference XLA/numpy path: blockize -> DCT -> quantize -> zigzag ->
-    64-slot VLC emission -> prefix-sum pack.  Runs under numpy (host
-    oracle), on CPU device meshes, and as the non-AAN / non-TPU fallback."""
+    """YCbCr 4:2:0 planes intake: y (B, H, W) u8 (H, W multiples of 16),
+    cb/cr (B, H/2, W/2) u8 -> (slice segments, bit lens).
+
+    blockize -> DCT -> quantize -> zigzag -> 64-slot VLC emission ->
+    prefix-sum pack.  The same code runs under numpy (host oracle) and
+    under jnp (the jitted device program).
+
+    The JPEG-source fast path: JPEGs already carry full-range BT.601
+    4:2:0 YCbCr, so decoding to RGB and re-converting
+    (decode IDCT->upsample->color, encode color->subsample) is four
+    stages of pure rounding loss.  Feeding the decoded planes straight
+    in (io/jpeg.decode_planes_batch) skips all four, halves the
+    host->device bytes vs RGB, and is higher-fidelity.
+    """
     bsz, h, w = y.shape
     mbh, mbw = h // 16, w // 16
 
@@ -229,8 +215,7 @@ def _generic_pipeline_from_planes(
         g = p.reshape(bsz, hh // 8, 8, ww // 8, 8)
         return g.transpose(0, 1, 3, 2, 4)  # (B, rows8, cols8, 8, 8)
 
-    # pure reshape/transpose (no gather — advanced indexing lowers to a
-    # serializing XLA gather on TPU): luma MB order [TL, TR, BL, BR]
+    # pure reshape/transpose, no gather: luma MB order [TL, TR, BL, BR]
     lg = y.reshape(bsz, mbh, 2, 8, mbw, 2, 8)
     luma = lg.transpose(0, 1, 4, 2, 5, 3, 6).reshape(bsz, mbh, mbw, 4, 8, 8)
     cbb = blockgrid(cb)[:, :, :, None]                 # (B,mbh,mbw,1,8,8)
@@ -253,248 +238,7 @@ def _generic_pipeline_from_planes(
     zz = xp.where(lane == 0, dc[..., None], zzq)
 
     pred = _dc_predictors(dc, bsz, mbh, mbw, xp)
-    return _emit_and_pack(zz, pred, max_slice_bytes, xp)
-
-
-def _tpu_pipeline_from_planes(y, cb, cr, intra_q, qscale, max_slice_bytes):
-    """TPU fast path: everything after colorspace in the blocks-on-lanes
-    layout (..., 8y, 8x, NB) / (..., 64, NB), ending in the fused Pallas
-    VLC kernel and the fused4 pack core.
-
-    The (..., 6, 8, 8) layout's minor-dim-8 tiles force XLA into
-    (4,128)(4,1) relayouts (the single biggest op in round-1 traces was
-    the blockize transpose at 1.4 ms); here the big NB=mbw*6 axis stays
-    on lanes end to end and the only transposes are one u8 blockize and
-    the 4:1-fused slot stream (4x smaller than raw slots).
-
-    NOTE: the EC504_BLOCKIZE_BARRIER / EC504_KFUSE / EC504_FUSE /
-    EC504_PACK_GROUP / EC504_PACK_S / EC504_PACK_BE / EC504_VLC /
-    EC504_DEBUG_CHECKS env knobs are read at TRACE time; jit caching
-    means a change after the
-    first call has no effect for the process lifetime.  EC504_PACK_BE
-    additionally selects which serialization helper the traced program
-    uses (words_be_to_bytes vs words_to_bytes), so a mid-process flip
-    would be doubly wrong.  They are debug/bench A-B switches, not
-    runtime config — set them before the first encode (the benchmark
-    matrix spawns fresh processes per variant for exactly this reason).
-    """
-    import os
-
-    import jax
-    import jax.numpy as jnp
-
-    from ec504_imageencoder_tpu.ops.bitpack import words_to_bytes
-    from ec504_imageencoder_tpu.ops.pallas_pack import pack_words_fused4_core
-    from ec504_imageencoder_tpu.ops.pallas_vlc import (
-        fuse_slots_streamwise,
-        vlc_from_blocks_tpu,
-    )
-
-    bsz, h, w = y.shape
-    mbh, mbw = h // 16, w // 16
-    nb = mbw * 6
-
-    if os.environ.get("EC504_BLOCKIZE_BARRIER", "1") == "1":
-        # materialize the clean (B, H, W) planes before the blockize
-        # transpose: otherwise XLA fuses the colorspace math INTO the
-        # blockized-layout write and reads the frame in scattered block
-        # order (1.4 ms vs one sequential pass + one tiled transpose)
-        y, cb, cr = jax.lax.optimization_barrier((y, cb, cr))
-
-    if os.environ.get("EC504_BLOCKIZE_PACK", "1") == "1":
-        # width-packed u32 blockize into the kernels' (B*mbh, 16, NB)
-        # layout (sublane = (px//4)*8 + py, byte px%4): relayouting u32
-        # elements instead of u8 halves the transpose cost (honest
-        # in-scan A/B at 16x1080p: 5.4 vs 10.7 ms), and the kernels
-        # extract the px bytes in VMEM where the u8->i32 convert
-        # happened anyway (pallas_vlc packed=True)
-        yq = jax.lax.bitcast_convert_type(
-            y.reshape(bsz, h, w // 4, 4), jnp.uint32
-        )
-        lg = yq.reshape(bsz, mbh, 2, 8, mbw, 2, 2)   # [b,my,y2,py,mx,x2,pxq]
-        luma = lg.transpose(0, 1, 6, 3, 4, 2, 5).reshape(
-            bsz, mbh, 16, mbw, 4
-        )
-
-        def chroma_q(p):
-            pq = jax.lax.bitcast_convert_type(
-                p.reshape(bsz, h // 2, w // 8, 4), jnp.uint32
-            )
-            g = pq.reshape(bsz, mbh, 8, mbw, 2)
-            return g.transpose(0, 1, 4, 2, 3).reshape(bsz, mbh, 16, mbw, 1)
-
-        blocks = jnp.concatenate(
-            [luma, chroma_q(cb), chroma_q(cr)], axis=-1
-        ).reshape(bsz * mbh, 16, nb)
-    else:
-        # u8 px-major (row = px*8 + py): 64 sublanes are u8-tile-exact,
-        # where the old (..., 8, 8, NB) layout padded its 8-sublane tile
-        # to 32 (4x HBM)
-        lg = y.reshape(bsz, mbh, 2, 8, mbw, 2, 8)    # [b,my,y2,py,mx,x2,px]
-        luma = lg.transpose(0, 1, 6, 3, 4, 2, 5).reshape(bsz, mbh, 64, mbw, 4)
-        cbb = cb.reshape(bsz, mbh, 8, mbw, 8).transpose(0, 1, 4, 2, 3).reshape(
-            bsz, mbh, 64, mbw, 1
-        )
-        crb = cr.reshape(bsz, mbh, 8, mbw, 8).transpose(0, 1, 4, 2, 3).reshape(
-            bsz, mbh, 64, mbw, 1
-        )
-        blocks = jnp.concatenate([luma, cbb, crb], axis=-1).reshape(
-            bsz * mbh, 64, nb
-        )
-
-    # one kernel per slice row: DCT + quantize + zigzag + DC prediction +
-    # VLC emission (+ slot fusion), all in VMEM
-    qw = (intra_q * qscale).astype(jnp.int32)          # (8,8)
-    kfuse = os.environ.get("EC504_KFUSE", "1") == "1"
-    # EC504_DEBUG_CHECKS=1 (trace-time, like the other knobs): the VLC and
-    # pack kernels run with their in-kernel invariant guards (SURVEY §5
-    # sanitizer analogue) and any violation surfaces as a NEGATED slice
-    # bit count, which _run_pipeline turns into a RuntimeError.  The fused8
-    # kernels carry no guard wiring, so debug mode routes through the
-    # guarded fused4 path below (debug-mode throughput is not the point).
-    debug = os.environ.get("EC504_DEBUG_CHECKS", "0") == "1"
-    # 4:1 slot fusion is the production default.  r4 made fused8 the
-    # default from a sustained-scan A/B whose bump consumed only `bits`
-    # — XLA dead-code-eliminated the pack placement, so those numbers
-    # (14.64 vs 15.27 ms) compared pipelines WITHOUT the pack kernel.
-    # The honest r5 A/B (scan bump consumes seg bytes too) at 16x1080p:
-    # fused4 31.9 ms vs fused8 53.9 ms for blocks->bytes — fused8's
-    # S=32 superchunks starve 96 of 128 lanes in every pack-prep op.
-    fuse8 = (kfuse and not debug
-             and os.environ.get("EC504_FUSE", "4") == "8")
-    if fuse8:
-        from ec504_imageencoder_tpu.ops.bitpack import words_be_to_bytes
-        from ec504_imageencoder_tpu.ops.pallas_pack import pack_words_fused8_core
-        from ec504_imageencoder_tpu.ops.pallas_vlc import (
-            fused8_stack_to_stream,
-            vlc_fused8_slots_from_blocks_tpu,
-        )
-
-        vstack, flens = vlc_fused8_slots_from_blocks_tpu(blocks, qw)
-        vs, fl = fused8_stack_to_stream(vstack, flens)
-        words, nbits = pack_words_fused8_core(
-            vs, fl, max_slice_bytes // 4, bit_offset=38
-        )
-        seg = words_be_to_bytes(words)
-        return (seg.reshape(bsz, mbh, max_slice_bytes),
-                nbits.reshape(bsz, mbh).astype(jnp.int32))
-    kviol = None
-    if kfuse:
-        from ec504_imageencoder_tpu.ops.pallas_vlc import (
-            fused_stack_to_stream,
-            vlc_fused_slots_from_blocks_tpu,
-        )
-
-        if debug:
-            vstack, flens, kviol = vlc_fused_slots_from_blocks_tpu(
-                blocks, qw, debug=True
-            )
-        else:
-            vstack, flens = vlc_fused_slots_from_blocks_tpu(blocks, qw)
-        v0, v1, v2, v3, flens = fused_stack_to_stream(vstack, flens)
-    else:
-        codes, lens = vlc_from_blocks_tpu(blocks, qw)
-        if debug:
-            from ec504_imageencoder_tpu.ops.pallas_vlc import slot_violations
-
-            kviol = slot_violations(
-                codes.transpose(1, 0, 2), lens.transpose(1, 0, 2), jnp
-            ).transpose(1, 0, 2)
-        v0, v1, v2, v3, flens = fuse_slots_streamwise(codes, lens)
-    pack_group = int(os.environ.get("EC504_PACK_GROUP", "32"))
-    pack_s = int(os.environ.get("EC504_PACK_S", "128"))
-    emit_be = os.environ.get("EC504_PACK_BE", "1") == "1"
-    if debug:
-        words, nbits, pviol = pack_words_fused4_core(
-            v0, v1, v2, v3, flens, max_slice_bytes // 4, S=pack_s,
-            group=pack_group, bit_offset=38, emit_be=emit_be, debug=True,
-        )
-        viol = pviol + kviol.sum(axis=(-2, -1))
-        nbits = jnp.where(viol > 0, -viol, nbits)
-    else:
-        words, nbits = pack_words_fused4_core(
-            v0, v1, v2, v3, flens, max_slice_bytes // 4, S=pack_s,
-            group=pack_group, bit_offset=38, emit_be=emit_be,
-        )
-    if emit_be:
-        from ec504_imageencoder_tpu.ops.bitpack import words_be_to_bytes
-
-        seg = words_be_to_bytes(words)
-    else:
-        seg = words_to_bytes(words, xp=jnp)
-    return (seg.reshape(bsz, mbh, max_slice_bytes),
-            nbits.reshape(bsz, mbh).astype(jnp.int32))
-
-
-def _emit_and_pack(zz, pred, max_slice_bytes, xp):
-    if xp is np:
-        return _emit_and_pack_generic(zz, pred, max_slice_bytes, xp)
-    import os
-
-    import jax
-
-    use_fused = os.environ.get("EC504_VLC", "fused") == "fused"
-    mw = max_slice_bytes // 4
-
-    def tpu(zz, pred):
-        if use_fused and mw % 128 == 0 and mw >= 640:
-            return _emit_and_pack_tpu(zz, pred, max_slice_bytes)
-        return _emit_and_pack_generic(zz, pred, max_slice_bytes, xp)
-
-    return jax.lax.platform_dependent(
-        zz, pred,
-        tpu=tpu,
-        default=lambda zz, pred: _emit_and_pack_generic(
-            zz, pred, max_slice_bytes, xp
-        ),
-    )
-
-
-def correct_pipeline_planes(
-    y, cb, cr, intra_q, qscale, max_slice_bytes, xp=np, dct_impl="aan",
-):
-    """YCbCr 4:2:0 planes intake: y (B, H, W) u8 (H, W multiples of 16),
-    cb/cr (B, H/2, W/2) u8 -> (slice segments, bit lens).
-
-    The JPEG-source fast path: JPEGs already carry full-range BT.601
-    4:2:0 YCbCr, so decoding to RGB and re-converting
-    (decode IDCT->upsample->color, encode color->subsample) is four
-    stages of pure rounding loss.  Feeding the decoded planes straight
-    in (io/jpeg.decode_planes_batch) skips all four, halves the
-    host->device bytes vs RGB, and is higher-fidelity.
-    """
-    bsz, h, w = y.shape[:3]
-    mbh = h // 16
-
-    if xp is np:
-        seg, nbits = _generic_pipeline_from_planes(
-            y, cb, cr, intra_q, qscale, max_slice_bytes, xp, dct_impl
-        )
-    else:
-        import os
-
-        import jax
-
-        mw = max_slice_bytes // 4
-        fused_ok = (
-            os.environ.get("EC504_VLC", "fused") == "fused"
-            and dct_impl == "aan" and mw % 128 == 0 and mw >= 640
-        )
-        generic = functools.partial(
-            _generic_pipeline_from_planes,
-            intra_q=intra_q, qscale=qscale,
-            max_slice_bytes=max_slice_bytes, xp=xp, dct_impl=dct_impl,
-        )
-        if fused_ok:
-            seg, nbits = jax.lax.platform_dependent(
-                y, cb, cr,
-                tpu=lambda y, cb, cr: _tpu_pipeline_from_planes(
-                    y, cb, cr, intra_q, qscale, max_slice_bytes
-                ),
-                default=lambda y, cb, cr: generic(y, cb, cr),
-            )
-        else:
-            seg, nbits = generic(y, cb, cr)
+    seg, nbits = _emit_and_pack(zz, pred, max_slice_bytes, xp)
     return _or_slice_headers(seg, nbits, bsz, mbh, qscale, xp)
 
 
@@ -551,8 +295,8 @@ def correct_pipeline(
                         else rgb_to_ycbcr)
             y, cb, cr = to_ycbcr(rgb, xp)
         else:
-            # one bitcast to packed u32 avoids re-reading the interleaved
-            # (..., 3) u8 layout (minor-dim-3 tiles inflate reads ~10x)
+            # one bitcast to packed u32 instead of three strided reads of
+            # the interleaved (..., 3) u8 layout
             from ec504_imageencoder_tpu.ops.color import (
                 pack_rgbx_u32,
                 rgb_to_ycbcr_packed,
@@ -718,11 +462,11 @@ class MPEG1IntraEncoder:
         self.quality = quality
         self.intra_q, self.qscale = quality_to_quant(quality)
         # the integer AAN's +-2 noise caps PSNR ~40 dB; at fine
-        # quantization switch to the f32 MXU-matmul DCT automatically.
+        # quantization switch to the f32 matmul DCT automatically.
         # Determinism of the f32 path: Precision.HIGHEST everywhere;
         # byte-identical across mesh shardings of the same backend
         # (locked by tests/test_sharding.py at q=85); across backends
-        # (numpy vs XLA CPU vs TPU) equal-PSNR only — rare f32 ties can
+        # (numpy vs XLA CPU vs GPU) equal-PSNR only — rare f32 ties can
         # flip bytes (ops/dct.py matmul_dct docstring).  Pass
         # dct_impl="aan" for bit-determinism across backends at any
         # quality.
@@ -783,14 +527,13 @@ class MPEG1IntraEncoder:
             seg_dev, bits_dev = run_once(msb)
             bits = np.asarray(bits_dev)
             if int(bits.min(initial=0)) < 0:
-                # EC504_DEBUG_CHECKS=1: in-kernel guards report violations
-                # as negated slice bit counts (_tpu_pipeline_from_planes)
+                # EC504_DEBUG_CHECKS=1: the slot guard reports violations
+                # as negated slice bit counts (_emit_and_pack)
                 viol = -bits[bits < 0]
                 raise RuntimeError(
-                    f"in-kernel invariant violations in {viol.size} slice(s) "
+                    f"slot invariant violations in {viol.size} slice(s) "
                     f"({int(viol.sum())} total hits) — VLC slot length/"
-                    "masking or pack byte-plane invariant broken; see "
-                    "ops.pallas_vlc.slot_violations"
+                    "masking broken; see models.mpeg1.slot_violations"
                 )
             need_bits = int(bits.max(initial=0))
             if need_bits <= 8 * msb:

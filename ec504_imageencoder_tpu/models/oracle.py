@@ -3,7 +3,7 @@
 This is the executable specification of the compat-mode bitstream: a
 direct, slow, readable implementation whose output is byte-exact against
 the reference C encoder (`awesome_video.mpeg`).  The production path
-(models/encoder.py) runs the same math as batched JAX kernels on TPU and
+(models/encoder.py) runs the same math as one batched JAX program and
 is tested against this oracle block-by-block and byte-by-byte.
 
 Frame structure per reference encoder.h:196-486; quirks per SURVEY.md §2.9

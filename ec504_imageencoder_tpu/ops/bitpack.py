@@ -8,8 +8,8 @@ them with a scatter-add (bit-disjoint adds == OR).  MSB-first within
 big-endian 32-bit words, matching MPEG bit order.
 
 `pack_words` is rank-polymorphic: leading axes are batch (frames, slices),
-packing runs along the last axis; XLA batches the scatter.  A fused Pallas
-variant can replace the scatter if it shows up in profiles; the interface
+packing runs along the last axis; XLA batches the scatter.  A fused
+kernel can replace the scatter if it shows up in profiles; the interface
 (codes, lens) -> (words, nbits) stays.
 """
 
@@ -65,10 +65,7 @@ def pack_words(codes, lens, max_words: int, xp=np, bit_offset: int = 0):
     import jax
 
     # Bit offsets are monotone, so per-word contributions are bit-disjoint
-    # (uint32 add == OR) and the scatter indices arrive sorted — which XLA
-    # TPU turns into an efficient vectorized scatter (measured ~0.1 ms for
-    # 12.8M codes; the scatter-free prefix-sum+searchsorted formulation is
-    # ~20x slower because large-array gathers serialize on TPU).
+    # (uint32 add == OR) and the scatter indices arrive sorted.
     def pack1(word_i, w0_i, w1_i):
         buf = xp.zeros((max_words,), xp.uint32)
         buf = buf.at[word_i].add(w0_i, mode="drop", indices_are_sorted=True)
@@ -85,81 +82,6 @@ def pack_words(codes, lens, max_words: int, xp=np, bit_offset: int = 0):
     return pack(word, w0, w1), nbits
 
 
-def pack_words_mxu(codes, lens, max_words: int, chunk: int | None = None,
-                   bit_offset: int = 0):
-    """TPU pack via chunked one-hot matmuls (no scatter, no gather).
-
-    Same contract as pack_words.  For each K-chunk, contributions become a
-    (W x chunk) one-hot contracted against the codes' byte planes on the
-    MXU.  Byte planes (<= 255) are exact in bf16, so default matmul
-    precision is bit-exact; per-word sums stay bit-disjoint.  The carry
-    (word+1) contributions are accumulated at `word` and rolled one word
-    at the end, avoiding a second one-hot.
-    """
-    import jax
-    import jax.numpy as jnp
-
-    xp = jnp
-    codes = xp.where(lens > 0, codes.astype(xp.uint32), xp.uint32(0))
-    lens = lens.astype(xp.int32)
-    ends = xp.cumsum(lens, axis=-1) + bit_offset
-    off = ends - lens
-    nbits = ends[..., -1]
-    word = (off >> 5).astype(xp.int32)
-    s = (off & 31).astype(xp.int32)
-    over = s + lens - 32
-    sh0 = xp.clip(32 - s - lens, 0, 31).astype(xp.uint32)
-    w0 = xp.where(over > 0, codes >> xp.clip(over, 0, 31).astype(xp.uint32), codes << sh0)
-    sh1 = xp.clip(32 - over, 1, 31).astype(xp.uint32)
-    w1 = xp.where(over > 0, codes << sh1, xp.uint32(0))
-
-    *batch, k = codes.shape
-    if chunk is None:
-        # bound the materialized one-hot (~n*chunk*W bf16) to ~256 MB
-        n_rows = max(1, int(np.prod(batch)) if batch else 1)
-        budget = 256 * 1024 * 1024 // (2 * max_words * n_rows)
-        chunk = int(min(2048, max(128, 1 << max(budget, 1).bit_length() >> 1)))
-    pad = (-k) % chunk
-    if pad:
-        zpad = xp.zeros(tuple(batch) + (pad,), xp.uint32)
-        w0 = xp.concatenate([w0, zpad], axis=-1)
-        w1 = xp.concatenate([w1, zpad], axis=-1)
-        word = xp.concatenate(
-            [word, xp.full(tuple(batch) + (pad,), max_words, xp.int32)], axis=-1
-        )
-    kp = k + pad
-
-    planes = xp.stack(
-        [((v >> (8 * i)) & 0xFF).astype(xp.bfloat16) for v in (w0, w1) for i in range(4)],
-        axis=-1,
-    )  # (..., K, 8)
-
-    n = int(np.prod(batch)) if batch else 1
-    wordc = word.reshape(n, kp // chunk, chunk).transpose(1, 0, 2)
-    planec = planes.reshape(n, kp // chunk, chunk, 8).transpose(1, 0, 2, 3)
-    wq = xp.arange(max_words, dtype=xp.int32)
-
-    def body(acc, xs):
-        wrd, pl8 = xs  # (n, chunk), (n, chunk, 8)
-        oh = (wrd[:, :, None] == wq[None, None, :]).astype(xp.bfloat16)
-        acc = acc + jax.lax.dot_general(
-            oh, pl8, (((1,), (1,)), ((0,), (0,))),
-            preferred_element_type=xp.float32,
-        )  # (n, W, 8)
-        return acc, 0
-
-    acc = xp.zeros((n, max_words, 8), xp.float32)
-    acc, _ = jax.lax.scan(body, acc, (wordc, planec))
-    b = acc.astype(xp.uint32)
-    direct = b[..., 0] | (b[..., 1] << 8) | (b[..., 2] << 16) | (b[..., 3] << 24)
-    carry = b[..., 4] | (b[..., 5] << 8) | (b[..., 6] << 16) | (b[..., 7] << 24)
-    carry = xp.concatenate(
-        [xp.zeros((n, 1), xp.uint32), carry[:, :-1]], axis=-1
-    )
-    words = (direct + carry).reshape(tuple(batch) + (max_words,))
-    return words, nbits
-
-
 def words_to_bytes(words, xp=np):
     """(..., W) uint32 big-endian words -> (..., W*4) uint8."""
     w = words.astype(xp.uint32)
@@ -172,17 +94,6 @@ def words_to_bytes(words, xp=np):
         ],
         axis=-1,
     ).astype(xp.uint8)
-    return b.reshape(words.shape[:-1] + (words.shape[-1] * 4,))
-
-
-def words_be_to_bytes(words):
-    """Byte-swapped u32 words (pack_words_fused8_core output) -> u8 bytes.
-
-    A pure bitcast: the words already hold the stream's byte order in
-    little-endian lanes.  jnp-only."""
-    import jax
-
-    b = jax.lax.bitcast_convert_type(words, np.uint8)
     return b.reshape(words.shape[:-1] + (words.shape[-1] * 4,))
 
 
@@ -239,72 +150,9 @@ def split_compact_slices(dense_words: np.ndarray, bits: np.ndarray):
 
 
 def pack_bytes(codes, lens, max_bytes: int, xp=np, bit_offset: int = 0):
-    """Convenience: pack straight to (..., max_bytes) uint8 + bit lengths."""
+    """Pack straight to (..., max_bytes) uint8 + bit lengths: the pack step
+    of every pipeline, on the host (numpy) and on the device (jnp)."""
     assert max_bytes % 4 == 0
     words, nbits = pack_words(codes, lens, max_bytes // 4, xp=xp,
                               bit_offset=bit_offset)
     return words_to_bytes(words, xp=xp), nbits
-
-
-def pack_bytes_device(codes, lens, max_bytes: int, xp=np, bit_offset: int = 0):
-    """Backend-dispatching pack.
-
-    On TPU the default is the 4:1 slot-fused superchunk Pallas kernel
-    (pack_words_fused4, 5.7 ms at the 12.8M-code 1080p batch vs 7.4 ms
-    plain fused, 19 ms two-level pallas3 and 48 ms global MXU one-hot —
-    re-measured on TPU v5e 2026-08);
-    EC504_PACK=fused|fused2w|pallas3|pallas1|mxu selects the others.
-    Elsewhere (CPU mesh tests) the generic sorted-scatter path runs.
-    Dispatch is by LOWERING platform (lax.platform_dependent), not
-    jax.default_backend(): a jit over a CPU device mesh in a process
-    whose default backend is the TPU plugin must not lower Pallas TPU
-    kernels."""
-    assert max_bytes % 4 == 0
-    if xp is np:
-        return pack_bytes(codes, lens, max_bytes, xp=xp, bit_offset=bit_offset)
-
-    import os
-
-    import jax
-    import jax.numpy as jnp
-
-    impl = os.environ.get("EC504_PACK", "fused4")
-    max_words = max_bytes // 4
-
-    def tpu_pack(codes, lens):
-        if impl == "pallas1":
-            from ec504_imageencoder_tpu.ops.pallas_pack import pack_words_pallas
-
-            words, nbits = pack_words_pallas(codes, lens, max_words,
-                                             bit_offset=bit_offset)
-        elif impl == "pallas3" and max_words % 128 == 0 and max_words >= 384:
-            from ec504_imageencoder_tpu.ops.pallas_pack import pack_words_pallas3
-
-            words, nbits = pack_words_pallas3(codes, lens, max_words,
-                                              bit_offset=bit_offset)
-        elif impl == "fused" and max_words % 128 == 0 and max_words >= 640:
-            from ec504_imageencoder_tpu.ops.pallas_pack import pack_words_fused
-
-            words, nbits = pack_words_fused(codes, lens, max_words,
-                                            bit_offset=bit_offset)
-        elif impl == "fused2w" and max_words % 128 == 0 and max_words >= 1152:
-            from ec504_imageencoder_tpu.ops.pallas_pack import pack_words_fused2w
-
-            words, nbits = pack_words_fused2w(codes, lens, max_words,
-                                              bit_offset=bit_offset)
-        elif impl == "fused4" and max_words % 128 == 0 and max_words >= 640:
-            from ec504_imageencoder_tpu.ops.pallas_pack import pack_words_fused4
-
-            words, nbits = pack_words_fused4(codes, lens, max_words,
-                                             bit_offset=bit_offset)
-        else:
-            words, nbits = pack_words_mxu(codes, lens, max_words,
-                                          bit_offset=bit_offset)
-        return words_to_bytes(words, xp=jnp), nbits
-
-    def generic_pack(codes, lens):
-        return pack_bytes(codes, lens, max_bytes, xp=jnp, bit_offset=bit_offset)
-
-    return jax.lax.platform_dependent(
-        codes, lens, tpu=tpu_pack, default=generic_pack
-    )

@@ -51,12 +51,9 @@ def _ycbcr_studio_i32(r, g, b, xp):
 def pack_rgbx_u32(rgb, xp):
     """(..., 3) u8 interleaved RGB -> (...,) u32 0x00BBGGRR (little-endian).
 
-    An interleaved u8 image's minor dimension of 3 pads to a full lane
-    tile on TPU (~10x read inflation — the single most expensive op in
-    the 1080p pipeline trace was the color conversion reading it).  One
-    zero-pad + bitcast converts to a clean rank-3 u32 array; channel
-    extraction becomes shifts/masks.  jnp-only (numpy callers keep the
-    sliced path, which is fine on CPU)."""
+    One zero-pad + bitcast converts the interleaved (..., 3) u8 image to
+    a clean rank-3 u32 array; channel extraction becomes shifts/masks.
+    jnp-only (numpy callers keep the sliced path)."""
     import jax
 
     z = xp.zeros(rgb.shape[:-1] + (1,), xp.uint8)
@@ -109,10 +106,8 @@ def subsample_420(plane, xp=np):
     //4 on non-negative ints == C truncating division.
 
     numpy path: reshape + paired sums.  jnp path: `lax.reduce_window`
-    (XLA:TPU's native pooling lowering) — measured 1.39 ms vs 1.56 ms for
-    the reshape-sum formulation on a 4x1080p plane, and far better than
-    stride-2 slices (~16 ms/plane: lane/sublane relayout).  Both paths are
-    value-identical (chip-verified + fuzz-locked).
+    (XLA's pooling lowering).  Both paths are value-identical
+    (fuzz-locked).
     """
     h, w = plane.shape[-2], plane.shape[-1]
     p = plane[..., : h - h % 2, : w - w % 2].astype(xp.int32)

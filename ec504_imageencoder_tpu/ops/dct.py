@@ -14,9 +14,9 @@ Two families:
   (image_processing.c:157-183, 452-480) retained as a correctness oracle
   for kernel tests, exactly as the reference keeps it.
 
-* ``dct_matrix_f32`` — orthonormal DCT-II basis for the fast path: on TPU
-  the batched 8x8 DCT is two 8x8 matmuls (MXU-friendly), used by the
-  non-compat pipeline where bit-exactness against C is not required.
+* ``dct_matrix_f32`` — orthonormal DCT-II basis for the high-quality
+  path: the batched 8x8 DCT as two 8x8 matmuls, used by the non-compat
+  pipeline where bit-exactness against C is not required.
 
 The AAN output convention matches the reference: the result is the 2-D
 DCT-II scaled by 8 (an /8 descale with +16/+16384 rounding bias is folded
@@ -118,43 +118,6 @@ def aan_dct(blocks, xp=np):
     return xp.stack(out, axis=-2)
 
 
-def aan_dct_nb(blocks, xp=np):
-    """aan_dct for the blocks-on-lanes layout: (..., 8y, 8x, NB) -> i32.
-
-    Bit-identical arithmetic to `aan_dct`; the pixel axes are
-    second/third-minor so every butterfly slice keeps the large NB axis
-    on TPU lanes (the (..., 8, 8) layout's minor-dim-8 forces XLA into
-    tiny (4,128)(4,1) tiles and relayout copies on every stage).
-    """
-    x = blocks.astype(xp.int32)
-    # row pass: combine along the 8x axis
-    a = [x[..., :, k, :] for k in range(8)]
-    e0, e4, e2, e6, o1, o5, o7, o3 = _aan_butterfly(a, xp)
-    rows = [None] * 8
-    rows[0] = e0
-    rows[4] = e4
-    rows[2] = e2 >> 10
-    rows[6] = e6 >> 10
-    rows[7] = (o1 - o5) >> 10
-    rows[1] = (o1 + o5) >> 10
-    rows[3] = (o7 * _R2) >> 17
-    rows[5] = (o3 * _R2) >> 17
-    r = xp.stack(rows, axis=-2)  # (..., 8y, 8j, NB)
-    # column pass: combine along the 8y axis
-    a = [r[..., k, :, :] for k in range(8)]
-    e0, e4, e2, e6, o1, o5, o7, o3 = _aan_butterfly(a, xp)
-    out = [None] * 8
-    out[0] = (e0 + 16) >> 3
-    out[4] = (e4 + 16) >> 3
-    out[2] = (e2 + 16384) >> 13
-    out[6] = (e6 + 16384) >> 13
-    out[7] = (o1 - o5 + 16384) >> 13
-    out[1] = (o1 + o5 + 16384) >> 13
-    out[3] = ((o7 >> 8) * _R2 + 8192) >> 12
-    out[5] = ((o3 >> 8) * _R2 + 8192) >> 12
-    return xp.stack(out, axis=-3)  # (..., 8v, 8u, NB)
-
-
 def aan_idct(dct_blocks, xp=np):
     """Exact int32 AAN inverse of the reference (image_processing.c:492-603).
 
@@ -221,7 +184,7 @@ def naive_idct_f64(dct_block: np.ndarray) -> np.ndarray:
 
 
 def matmul_dct(blocks, xp=np):
-    """Batched 8x8 DCT as two matmuls (MXU path): (..., 8, 8) u8 -> i32.
+    """Batched 8x8 DCT as two matmuls: (..., 8, 8) u8 -> i32.
 
     Uses the orthonormal basis (same scale convention as `aan_dct` but
     ~2000x more accurate: f32 error ~1e-3 vs the AAN fixed point's +-2-3).
@@ -229,17 +192,15 @@ def matmul_dct(blocks, xp=np):
     truncation noise caps PSNR around 40 dB; not usable in compat mode
     (bit-exactness requires the reference's integer arithmetic).
 
-    Determinism: the einsum runs at Precision.HIGHEST (full f32 MXU
-    passes — the TPU default would round operands through bf16, both
-    losing accuracy and diverging from host f32).  Measured guarantee
-    (tests/test_sharding.py q=85 row): host numpy, XLA CPU, and every
-    CPU-mesh sharding produce byte-identical streams; across *hardware*
-    backends (CPU vs TPU) f32 contraction-order differences can still
-    flip a rounding on rare half-ulp ties, so cross-hardware encodes
-    promise equal PSNR (to 0.05 dB; measured 0.011 dB apart at q=85 on
-    v5e vs host, TPU_EXTRAS_r05.json) rather than equal bytes.  The integer `aan_dct`
-    path is bit-deterministic everywhere and is the default below
-    quality 70.
+    Determinism: the einsum runs at Precision.HIGHEST, so the GPU does
+    not compute the f32 product in TF32 (nor any backend through bf16).
+    Host numpy, XLA CPU, and every CPU-mesh sharding produce
+    byte-identical streams (tests/test_sharding.py q=85 row); across
+    hardware backends f32 contraction-order differences can still flip a
+    rounding on rare half-ulp ties, so cross-hardware encodes promise
+    equal PSNR (to 0.05 dB) rather than equal bytes.  The integer
+    `aan_dct` path is bit-deterministic everywhere and is the default
+    below quality 70.
     """
     d = xp.asarray(dct_matrix_f32())
     b = blocks.astype(xp.float32)
@@ -255,7 +216,8 @@ def matmul_dct(blocks, xp=np):
 def dct_matrix_f32() -> np.ndarray:
     """Orthonormal 8-point DCT-II matrix D (f32): coeffs = D @ block @ D.T.
 
-    The fast (non-compat) path computes batched DCTs as two MXU matmuls.
+    The high-quality (non-compat) path computes batched DCTs as two
+    matmuls.
     The AAN fixed-point kernel approximates this same orthonormal scale
     (its /8 descale is folded into the final shift constants), so both
     paths feed the same quantizer convention.

@@ -1,5 +1,5 @@
-"""JPEG decode back-half as device array ops (the TPU side of the hybrid
-decoder).
+"""JPEG decode back-half as device array ops (the device side of the
+hybrid decoder).
 
 The host's entropy decode (io/native stb_compat_jpeg.cpp, COEFFS stage)
 is inherently serial; everything after it is dense block math — exactly
@@ -192,6 +192,6 @@ def decode_planes_from_coeffs(yc, cbc, crc, h: int, w: int, xp=np):
 
 
 def decode_rgb_from_coeffs(yc, cbc, crc, h: int, w: int, xp=np):
-    """The full TPU-side decode: coefficients -> RGB (one jittable fn)."""
+    """The full device-side decode: coefficients -> RGB (one jittable fn)."""
     y, cb, cr = decode_planes_from_coeffs(yc, cbc, crc, h, w, xp)
     return decode_rgb_from_planes(y, cb, cr, xp)

@@ -14,13 +14,13 @@ import numpy as np
 def quantize(dct_int, scaled_q, xp=np):
     """Truncating division toward zero: (..., 8, 8) i32 / (8, 8) i32.
 
-    On device this runs as f32 division + floor + integer correction:
-    XLA:TPU expands int32 division into a very expensive bit-serial routine
-    (20s compile), and TPU f32 division is reciprocal-based (NOT correctly
-    rounded), so the f32 quotient can be off by ~2 ulp.  For our magnitudes
-    (|coeff| <= ~2100, q <= 4150) that error is < 1, so a branchless +-1
-    fix-up with exact int32 multiplies recovers the true floor.
-    Locked by a fuzz test against the integer path.
+    On device this runs as f32 division + floor + integer correction
+    (exact_div_floor) instead of an int32 divide.  A device f32 division
+    need not be correctly rounded, so the f32 quotient can be off by a
+    few ulp.  For our magnitudes (|coeff| <= ~2100, q <= 4150) that error
+    is < 1, so a branchless +-1 fix-up with exact int32 multiplies
+    recovers the true floor.  Locked by a fuzz test against the integer
+    path.
     """
     d = dct_int.astype(xp.int32)
     if xp is np:

@@ -1,6 +1,6 @@
 """Vectorized VLC emission: quantized zigzag blocks -> (code, len) tensors.
 
-This is the TPU-native replacement for the reference's per-coefficient
+This is the data-parallel replacement for the reference's per-coefficient
 bitvector appends (vlc.c:315-385, image_processing.c:400-433,
 mpeg1_blk.c:67-113): every 8x8 block yields a fixed 65-slot stream of
 (codeword, bitlength) pairs — 1 DC slot, 63 AC slots (one per zigzag
@@ -90,9 +90,8 @@ def _escape_codes(ri, al, sign, xp):
 def _ac_table(ri, al, compat: bool, xp):
     """(code, len) from table B.5c/d; len 0 where no row exists.
 
-    Under numpy this is a plain dense-LUT gather; under JAX it routes
-    through the gather-free MXU one-hot lookup (ops/mxu_lut.py) because
-    large-index gathers serialize on TPU.
+    Under numpy this is a plain dense-LUT gather; under JAX it gathers
+    from the rank-compressed 112-entry table (ops/vlc_lut.py).
     """
     if xp is np:
         ri_c = np.clip(ri, 0, 31)
@@ -105,9 +104,9 @@ def _ac_table(ri, al, compat: bool, xp):
             code = AC_CODE_CORRECT[ri_c, al_c]
             length = AC_LEN_CORRECT[ri_c, al_c]
         return np.where(in_range, code, 0), np.where(in_range, length, 0)
-    from ec504_imageencoder_tpu.ops import mxu_lut
+    from ec504_imageencoder_tpu.ops import vlc_lut
 
-    return mxu_lut.ac_table_lookup(ri, al, xp, compat=compat)
+    return vlc_lut.ac_table_lookup(ri, al, xp, compat=compat)
 
 
 def ac_codes_compat(levels_ac, zeros_before_ac, xp=np):
@@ -160,12 +159,12 @@ def ac_codes_correct(levels_ac, zeros_before_ac, xp=np):
 
 
 def _dc_table(luma_i, sz, xp):
-    """dct_dc_size (code, len); gather-free on device."""
+    """dct_dc_size (code, len)."""
     if xp is np:
         return _DC_CODE_STACK[luma_i, sz], _DC_LEN_STACK[luma_i, sz]
-    from ec504_imageencoder_tpu.ops import mxu_lut
+    from ec504_imageencoder_tpu.ops import vlc_lut
 
-    return mxu_lut.dc_size_lookup(luma_i, sz, xp)
+    return vlc_lut.dc_size_lookup(luma_i, sz, xp)
 
 
 def block_streams_compat(zz, is_luma, xp=np):
@@ -217,15 +216,13 @@ def block_streams_compat(zz, is_luma, xp=np):
 def block_streams_correct64(zz, dc_pred, is_luma, xp=np, mb_first=None):
     """ISO intra block emission in a lane-aligned 64-slot layout.
 
-    Bit-identical stream content to `block_streams_correct`, but shaped
-    for the TPU: exactly one slot per zigzag position, no concatenates —
-    the EOB code is folded into slot 63 ((code<<2)|'10') and, where
-    `mb_first` is set (the first block of a macroblock), the 2-bit
-    macroblock header '11' (address increment 1 + intra type,
-    mpeg1_blk.c:38-58 semantics) is folded into the DC slot.  Keeping the
-    last axis at 64 keeps every intermediate on native (8, 128) tiling;
-    the 65-slot layout forced XLA into relayout copies on every op
-    (measured ~12 ms of pure copy/reshape tail per 4x1080p batch).
+    Bit-identical stream content to `block_streams_correct`, but with
+    exactly one slot per zigzag position and no concatenates — the EOB
+    code is folded into slot 63 ((code<<2)|'10') and, where `mb_first`
+    is set (the first block of a macroblock), the 2-bit macroblock header
+    '11' (address increment 1 + intra type, mpeg1_blk.c:38-58 semantics)
+    is folded into the DC slot.  A 64-wide last axis makes the slot
+    stream of a slice a plain reshape of the block tensor.
 
     zz: (..., 64) quantized zigzag; dc_pred: (...,) DC predictors;
     mb_first: optional (...,) bool/int mask.  Returns (codes, lens) of

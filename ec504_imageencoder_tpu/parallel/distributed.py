@@ -1,13 +1,13 @@
 """Multi-host distributed encoding.
 
-Replaces what NCCL/MPI would be in a GPU framework with jax.distributed +
-the workload's natural decomposition (SURVEY.md §2.1): GOPs are fully
-independent byte segments, so hosts take GOPs round-robin, write
-checkpointed segment files (runtime/checkpoint.py), synchronize with a
-device barrier, and process 0 stitches the final stream.  Within a host,
-the sharded encoder fans frames/rows across local devices over ICI; the
-only cross-host traffic is the file-system segment gather (DCN), mirroring
-how slices/GOPs are byte-aligned islands.
+jax.distributed + the workload's natural decomposition (SURVEY.md §2.1):
+GOPs are fully independent byte segments, so hosts take GOPs round-robin,
+write checkpointed segment files (runtime/checkpoint.py), synchronize
+with a device barrier, and process 0 stitches the final stream.  Within
+a host, the sharded encoder fans frames/rows across the local devices
+(a flat device list; slices need no device-to-device traffic); the only
+cross-host traffic is the file-system segment gather, mirroring how
+slices/GOPs are byte-aligned islands.
 
 Failure model: frames are independent — a lost host's pending GOPs are
 simply absent from the manifest, and any restart (same workdir) encodes

@@ -17,12 +17,6 @@ def test_python_entry_point_parity(tmp_path, fixture_frames, frame_order, golden
 
     from ec504_imageencoder_tpu import mpeg_encode_procedure
 
-    # need the native decoder for exactness; skip if not built
-    from ec504_imageencoder_tpu.io.jpeg import have_native_decoder
-
-    if not have_native_decoder():
-        subprocess.run(["make", "-s"], cwd=NATIVE, check=True)
-
     ref = pathlib.Path("/root/reference/images.zip")
     if not ref.exists():
         pytest.skip("reference fixtures unavailable")

@@ -3,19 +3,11 @@ device back-half ops (ops/jpeg_tpu.py) must be pixel-identical to the
 full native decode (and therefore to stb_image), and the encoder's
 YCbCr-planes intake must match the RGB intake bit-for-bit."""
 
-import os
-
 import numpy as np
 import pytest
 
 from ec504_imageencoder_tpu.io import jpeg as jio
 from ec504_imageencoder_tpu.ops import jpeg_tpu as jt
-
-pytestmark = pytest.mark.skipif(
-    not (jio.have_native_decoder()
-         and hasattr(jio._load_native(), "stbj_probe_file")),
-    reason="native staged JPEG decoder unavailable",
-)
 
 
 @pytest.fixture(scope="module")

@@ -14,9 +14,8 @@ NATIVE_DIR = pathlib.Path(jpeg_io.__file__).parent / "native"
 
 @pytest.fixture(scope="module", autouse=True)
 def build_native():
-    if not (NATIVE_DIR / "libstbjpeg.so").exists():
-        subprocess.run(["make", "-s"], cwd=NATIVE_DIR, check=True)
-    assert jpeg_io.have_native_decoder()
+    jpeg_io._load_native()
+    assert (NATIVE_DIR / "libstbjpeg.so").exists()
 
 
 @pytest.fixture(scope="module")
@@ -32,7 +31,7 @@ def fixture_jpegs(tmp_path_factory):
 
 def test_native_matches_stb_goldens(fixture_jpegs, fixture_frames):
     for k in "012":
-        img = jpeg_io.decode_jpeg(str(fixture_jpegs / f"{k}.jpg"), require_exact=True)
+        img = jpeg_io.decode_jpeg(str(fixture_jpegs / f"{k}.jpg"))
         np.testing.assert_array_equal(img, fixture_frames[k])
 
 
@@ -52,7 +51,7 @@ def test_pil_fuzz_roundtrip(tmp_path):
         if mode == "RGB":
             kw["subsampling"] = sub
         Image.fromarray(arr, mode).save(p, **kw)
-        img = jpeg_io.decode_jpeg(str(p), require_exact=True)
+        img = jpeg_io.decode_jpeg(str(p))
         assert img.shape == (h, w, 3)
         pil = np.asarray(Image.open(p).convert("RGB")).astype(int)
         # different decoder family: chroma filters differ at edges, so only
@@ -64,7 +63,7 @@ def test_end_to_end_compat_from_jpeg_files(fixture_jpegs, frame_order, golden_mp
     from ec504_imageencoder_tpu.models.encoder import encode_compat
 
     frames = np.stack(
-        [jpeg_io.decode_jpeg(str(fixture_jpegs / f"{k}.jpg"), require_exact=True) for k in frame_order]
+        [jpeg_io.decode_jpeg(str(fixture_jpegs / f"{k}.jpg")) for k in frame_order]
     )
     mine, _ = encode_compat(frames, 12, backend="numpy")
     assert mine == golden_mpeg
@@ -105,3 +104,44 @@ def test_batch_decode_rejects_dim_mismatch(fixture_jpegs, tmp_path):
     Image.new("RGB", (64, 48)).save(tmp_path / "small.jpg")
     with pytest.raises(ValueError, match="dimensions"):
         jpeg_io.load_folder(str(tmp_path))
+
+
+JPEG1080 = pathlib.Path(__file__).parent / "golden" / "jpeg1080"
+
+
+def test_native_decoder_rebuilt_from_source(tmp_path, monkeypatch):
+    """With no library on disk, first use builds it from the committed
+    source and Makefile, then loads and decodes with it."""
+    import shutil
+
+    d = tmp_path / "native"
+    d.mkdir()
+    for f in ("Makefile", "stb_compat_jpeg.cpp"):
+        shutil.copy(NATIVE_DIR / f, d / f)
+    monkeypatch.setattr(jpeg_io, "_NATIVE_DIR", str(d))
+    monkeypatch.setattr(jpeg_io, "_native", None)
+    lib = jpeg_io._load_native()
+    assert lib._name == str(d / "libstbjpeg.so")
+    assert [p.name for p in d.iterdir() if p.suffix == ".tmp"] == []
+    img = jpeg_io.decode_jpeg(str(JPEG1080 / "frame_0000.jpg"))
+    assert img.shape == (1080, 1920, 3)
+
+
+def test_jpeg_intake_raises_without_native_decoder(tmp_path, monkeypatch):
+    """No silent fallback to another decoder: every intake raises when
+    the native library cannot be built."""
+    import shutil
+
+    from ec504_imageencoder_tpu.io.stream import FolderFrameSource
+
+    monkeypatch.setattr(jpeg_io, "_NATIVE_DIR", str(tmp_path / "empty"))
+    monkeypatch.setattr(jpeg_io, "_native", None)
+    folder = tmp_path / "jpegs"
+    folder.mkdir()
+    shutil.copy(JPEG1080 / "frame_0000.jpg", folder / "a.jpg")
+    with pytest.raises(RuntimeError, match="native JPEG decoder"):
+        jpeg_io.decode_jpeg(str(folder / "a.jpg"))
+    with pytest.raises(RuntimeError, match="native JPEG decoder"):
+        jpeg_io.load_folder(str(folder))
+    with pytest.raises(RuntimeError, match="native JPEG decoder"):
+        FolderFrameSource(str(folder))

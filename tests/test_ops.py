@@ -146,15 +146,24 @@ def test_vlc_tables_prefix_free():
     assert_prefix_free(ac)
 
 
-def test_aan_dct_nb_matches_aan_dct():
-    """Blocks-on-lanes AAN layout is bit-identical to the (..., 8, 8) one."""
-    from ec504_imageencoder_tpu.ops.dct import aan_dct, aan_dct_nb
+@pytest.mark.parametrize("compat", [False, True])
+def test_ac_table_device_lookup_matches_dense_lut(compat):
+    """The rank-compressed 112-entry gather (ops/vlc_lut.py, the device
+    path) equals the dense (run, level) LUTs the host path reads, for
+    every run/level including rows that do not exist and the compat
+    table's (16, 2) typo.  Compat (0, 1) is left out: ac_codes_compat
+    emits its special '11' code without reading the table."""
+    import jax.numpy as jnp
 
-    rng = np.random.default_rng(5)
-    blocks = rng.integers(0, 256, (3, 7, 8, 8), dtype=np.int32)
-    want = aan_dct(blocks)                     # (3, 7, 8, 8)
-    got = aan_dct_nb(blocks.transpose(2, 3, 0, 1).reshape(8, 8, 21))
-    assert np.array_equal(got.reshape(8, 8, 3, 7).transpose(2, 3, 0, 1), want)
+    from ec504_imageencoder_tpu.ops.vlc_device import _ac_table
+
+    ri, al = np.meshgrid(np.arange(34), np.arange(1, 43), indexing="ij")
+    ri, al = ri.astype(np.int32), al.astype(np.int32)
+    want_c, want_l = _ac_table(ri, al, compat, np)
+    got_c, got_l = _ac_table(jnp.asarray(ri), jnp.asarray(al), compat, jnp)
+    used = ~((ri == 0) & (al == 1)) if compat else np.ones(ri.shape, bool)
+    np.testing.assert_array_equal(np.asarray(got_l)[used], want_l[used])
+    np.testing.assert_array_equal(np.asarray(got_c)[used], want_c[used])
 
 
 def test_packed_rgbx_color_matches_sliced():

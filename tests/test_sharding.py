@@ -10,9 +10,10 @@ from ec504_imageencoder_tpu.models.mpeg1 import MPEG1IntraEncoder
 from ec504_imageencoder_tpu.parallel import mesh as mesh_lib
 from ec504_imageencoder_tpu.parallel.sharded_encoder import ShardedMPEG1Encoder
 
-pytestmark = pytest.mark.skipif(
-    len(jax.devices()) < 8, reason="needs 8 virtual devices"
-)
+@pytest.fixture(autouse=True)
+def _eight_devices():
+    if len(jax.devices()) < 8:
+        pytest.skip("needs 8 virtual devices")
 
 
 @pytest.fixture(scope="module")
@@ -82,10 +83,10 @@ def test_sharded_step_compiles_collective_free(shape):
     """HLO-level evidence for the zero-collective scaling claim
     (parallel/mesh.py docstring): the compiled partitioned program must
     contain no cross-device communication ops.  Slices are independent
-    bitstream islands, so any collective is a partitioning defect (r4
-    found the MXU LUT flatten and the pack reshape both forced
-    all-gathers; ops/mxu_lut.py + ops/bitpack.py now keep sharded axes
-    unmerged)."""
+    bitstream islands, so any collective is a partitioning defect (a
+    flatten that merges the sharded leading axes forces all-gathers;
+    ops/vlc_lut.py gathers from a replicated table and ops/bitpack.py
+    vmaps over the leading axes to keep them unmerged)."""
     import re
 
     from ec504_imageencoder_tpu.models.mpeg1 import quality_to_quant
@@ -106,6 +107,15 @@ def test_graft_entry_dryrun():
     import __graft_entry__ as g
 
     g.dryrun_multichip(8)
+
+
+def test_graft_entry_dryrun_raises_when_short_of_devices():
+    """Asking for more devices than exist raises; it never switches to
+    another platform's devices."""
+    import __graft_entry__ as g
+
+    with pytest.raises(RuntimeError, match="need 16"):
+        g.dryrun_multichip(16)
 
 
 def test_graft_entry_single():
